@@ -48,6 +48,20 @@ def _load_config(args) -> PipelineConfig:
     return cfg
 
 
+def _viz():
+    """:mod:`eegflow.viz` when matplotlib (the ``analysis`` extra) is
+    installed, else None: the stage then writes its results without figures
+    and says so."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: figures are not written")
+        return None
+    import eegflow.viz
+
+    return eegflow.viz
+
+
 def _load_splits(paths) -> dict:
     arrays, meta = load_processed(paths["processed"] / "processed_sequences.npz")
     return {k: np.asarray(v) for k, v in arrays.items()}, meta
@@ -213,7 +227,7 @@ def apply_small_subject_reg(train_cfg, n_train_subj):
     24-subject parity set (17 training subjects) fresh surrogates lifted
     test AUC 0.8093 -> 0.9954 / MCC 0.4691 -> 0.9296 at identical budget,
     vs 0.9718 for static x3 (round-5 gap_variants sweep,
-    docs/ab_r5/gap_variants.json). Off at reference scale — parity
+    docs/accuracy/gap_variants.json). Off at reference scale — parity
     semantics there stay the reference's noise+shift (ref 04:290-312).
 
     An explicit aug_mixup=false / aug_phase_surrogates=0 is
@@ -246,7 +260,6 @@ def cmd_train(args):
     from eegflow.train.mesh import make_data_mesh
     from eegflow.train.steps import make_eval_step
     from eegflow.analyze.evaluate import evaluate_model
-    from eegflow.viz import plot_attention_weights, plot_training_history
 
     cfg = _load_config(args)
     paths = _paths(args)
@@ -343,10 +356,13 @@ def cmd_train(args):
                            "windows_per_sec": res.windows_per_sec})
     save_results(paths["results"] / "lstm_results.json", evaluation)
     np.save(paths["models"] / "attention_weights.npy", attention)
-    plot_training_history(res.history, paths["figures"] / "fig07_training")
-    if len(attention) and len(y_test):
-        plot_attention_weights(attention, y_test, paths["figures"] / "fig08_attention",
-                               cfg.preprocess.sampling_rate)
+    viz = _viz()
+    if viz is not None:
+        viz.plot_training_history(res.history, paths["figures"] / "fig07_training")
+        if len(attention) and len(y_test):
+            viz.plot_attention_weights(attention, y_test,
+                                       paths["figures"] / "fig08_attention",
+                                       cfg.preprocess.sampling_rate)
 
 
 def cmd_fit_ode(args):
@@ -422,7 +438,6 @@ def _load_coupled_model(paths, cfg):
 def cmd_integrate(args):
     from eegflow.analyze.evaluate import evaluate_model
     from eegflow.couple import coupling_strength_sweep, predict_batch
-    from eegflow.viz import plot_coupling_analysis, plot_trajectory_examples
 
     cfg = _load_config(args)
     paths = _paths(args)
@@ -446,13 +461,14 @@ def cmd_integrate(args):
     save_results(paths["results"] / "integration_results.json",
                  {"evaluation": evaluation, "throughput_samples_per_sec": n / max(dt, 1e-9)})
     save_results(paths["results"] / "coupling_analysis.json", sweep)
-    plot_coupling_analysis(sweep, paths["figures"] / "fig13_coupling")
-    plot_trajectory_examples(res["trajectories"], res["probs"],
-                             paths["figures"] / "fig14_trajectories")
+    viz = _viz()
+    if viz is not None:
+        viz.plot_coupling_analysis(sweep, paths["figures"] / "fig13_coupling")
+        viz.plot_trajectory_examples(res["trajectories"], res["probs"],
+                                     paths["figures"] / "fig14_trajectories")
 
     # model-zoo comparison across all stages run so far (ref 06:636-777)
     from eegflow.analyze.tables import format_results_table, merge_all_model_results
-    from eegflow.viz import plot_comprehensive_comparison
 
     baselines = lstm = None
     if (paths["results"] / "baseline_results.json").exists():
@@ -462,8 +478,9 @@ def cmd_integrate(args):
     all_results = merge_all_model_results(baselines, lstm,
                                           {"evaluation": evaluation})
     save_results(paths["results"] / "all_model_results.json", all_results)
-    plot_comprehensive_comparison(all_results,
-                                  paths["figures"] / "fig15_model_zoo")
+    if viz is not None:
+        viz.plot_comprehensive_comparison(all_results,
+                                          paths["figures"] / "fig15_model_zoo")
     print(format_results_table(all_results))
 
 
@@ -809,7 +826,7 @@ def cmd_all(args):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="eegflow",
-                                     description="TPU-native LSTM-ODE EEG pipeline")
+                                     description="LSTM-ODE EEG pipeline")
     parser.add_argument("--data-dir", default="data/ds004148")
     parser.add_argument("--output-dir", default="outputs")
     parser.add_argument("--config", default=None, help="PipelineConfig JSON file")
@@ -882,6 +899,9 @@ def main(argv=None):
     p.set_defaults(fn=cmd_all)
 
     args = parser.parse_args(argv)
+    from eegflow.core.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args) or 0
 
 

@@ -26,7 +26,6 @@ from typing import Optional
 import numpy as np
 
 from eegflow.couple.rollout import CoupledModel, predict_batch
-from eegflow.nn.lstm import resolve_lstm_impl
 
 
 class InferenceServer:
@@ -76,7 +75,6 @@ class InferenceServer:
                         "input_size": cfg.input_size,
                         "hidden_size": cfg.resolved_hidden(),
                         "num_layers": cfg.num_layers,
-                        "lstm_impl": resolve_lstm_impl(server.model.lstm_impl),
                         "coupling_strength": server.model.coupling.coupling_strength,
                     }})
                 else:
@@ -121,6 +119,9 @@ def serve(
     thread, so /health responds while jit compiles (liveness vs readiness);
     an early /predict simply blocks on its own compile.
     """
+    from eegflow.core.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     inference = InferenceServer(model)
     httpd = ThreadingHTTPServer((host, port), inference.handler_class())
     if warmup_seq_len:

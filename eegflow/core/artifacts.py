@@ -4,7 +4,7 @@ Mirrors the reference's on-disk contract — ``processed_sequences.npz`` +
 ``preprocessing_metadata.json`` (ref 02_preprocessing.py:393-414), a model
 checkpoint embedding its architectural config and training history
 (ref 04_lstm_model.py:921-933), and per-stage JSON result files — but stores
-params as a JAX pytree (msgpack via flax.serialization) instead of a torch
+params as a JAX pytree (one ``.npz`` entry per leaf) instead of a torch
 state dict. Every downstream stage reconstructs models from the embedded
 config, which is the serialization contract.
 """
@@ -70,30 +70,15 @@ def save_checkpoint(
     model_config: ModelConfig,
     history: Optional[Dict[str, Any]] = None,
     extra: Optional[Dict[str, Any]] = None,
-    backend: str = "msgpack",
 ) -> Path:
-    """Save params pytree + config + history to a checkpoint directory.
-
-    ``backend='msgpack'`` (flax serialization, single file) or ``'orbax'``
-    (orbax.checkpoint PyTree handler — the production TPU checkpointing
-    stack, async-capable and sharding-aware for multi-chip runs).
-    """
+    """Save params pytree + config + history to a checkpoint directory:
+    ``params.npz`` (:func:`save_pytree`) beside ``checkpoint.json``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    params = jax_to_numpy(params)
-    if backend == "orbax":
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save((path / "orbax").absolute(), params, force=True)
-        ckptr.wait_until_finished()
-    else:
-        from flax import serialization
-
-        (path / "params.msgpack").write_bytes(serialization.to_bytes(params))
+    save_pytree(path / "params.npz", params)
     cfg = {f: getattr(model_config, f) for f in model_config.__dataclass_fields__}
     payload = {"model_config": cfg, "history": _jsonable(history or {}),
-               "extra": _jsonable(extra or {}), "backend": backend,
+               "extra": _jsonable(extra or {}),
                # model-family tag: classifier_init/apply dispatch on the
                # config TYPE, so the checkpoint must round-trip it
                "model_type": type(model_config).__name__}
@@ -104,12 +89,10 @@ def save_checkpoint(
 def load_checkpoint(path: str | Path, params_template: Any = None):
     """Load (params, ModelConfig, history, extra) from a checkpoint directory.
 
-    If ``params_template`` is None the raw msgpack dict-of-arrays is returned
-    (flax state-dict form); with a template the exact pytree structure is
-    restored.
+    If ``params_template`` is None the params come back as nested dicts and
+    lists of arrays (the init-time structure); with a template the exact
+    pytree structure is restored (:func:`load_pytree`).
     """
-    from flax import serialization
-
     path = Path(path)
     payload = json.loads((path / "checkpoint.json").read_text())
     from eegflow.core.config import TransformerConfig
@@ -118,26 +101,67 @@ def load_checkpoint(path: str | Path, params_template: Any = None):
                "TransformerConfig": TransformerConfig}[
         payload.get("model_type", "ModelConfig")]
     cfg = cfg_cls(**payload["model_config"])
-    if payload.get("backend") == "orbax":
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        params = ckptr.restore((path / "orbax").absolute(),
-                               target=params_template)
-        if params_template is None:
-            params = _restore_lists(params)
-    else:
-        raw = (path / "params.msgpack").read_bytes()
-        if params_template is None:
-            params = _restore_lists(serialization.msgpack_restore(raw))
-        else:
-            params = serialization.from_bytes(params_template, raw)
+    params = load_pytree(path / "params.npz", params_template)
     return params, cfg, payload.get("history", {}), payload.get("extra", {})
 
 
+def _leaf_key(key_path) -> str:
+    """``/``-joined name of a pytree leaf: dict keys, sequence indices and
+    attribute names in order (``lstm/0/fwd/w_ih``, ``1/0/mu/head1/b``)."""
+    parts = []
+    for k in key_path:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+        else:
+            raise TypeError(f"unsupported pytree key {k!r}")
+    return "/".join(parts)
+
+
+def save_pytree(path: str | Path, tree: Any) -> None:
+    """Write a pytree of arrays as one ``.npz``, one entry per leaf, named by
+    the leaf's path (:func:`_leaf_key`)."""
+    import jax
+
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    arrays = {_leaf_key(p): np.asarray(v) for p, v in leaves}
+    if len(arrays) != len(leaves):
+        raise ValueError("pytree leaf paths collide; cannot save as .npz")
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_pytree(path: str | Path, template: Any = None) -> Any:
+    """Read a :func:`save_pytree` file.
+
+    With ``template`` (any pytree of the saved structure, e.g. freshly
+    initialized params and optimizer state) the leaves are put back into
+    that structure. Without one, the paths rebuild nested dicts, and dicts
+    keyed exactly ``"0".."n-1"`` become lists.
+    """
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {k: data[k] for k in data.files}
+    if template is not None:
+        import jax
+
+        leaves, treedef = jax.tree_util.tree_flatten_with_path(template)
+        return jax.tree_util.tree_unflatten(
+            treedef, [arrays[_leaf_key(p)] for p, _ in leaves])
+    tree: Dict[str, Any] = {}
+    for name, value in arrays.items():
+        *parents, leaf = name.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return _restore_lists(tree)
+
+
 def _restore_lists(tree: Any) -> Any:
-    """msgpack stores Python lists as {"0": ..., "1": ...} dicts; undo that so
-    restored params match the init-time pytree structure."""
+    """Leaf paths name list items by index, so a list comes back as a
+    {"0": ..., "1": ...} dict; undo that so restored params match the
+    init-time pytree structure."""
     if isinstance(tree, dict):
         restored = {k: _restore_lists(v) for k, v in tree.items()}
         keys = set(restored.keys())
@@ -168,12 +192,6 @@ def load_results(path: str | Path) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
-
-
-def jax_to_numpy(tree: Any) -> Any:
-    import jax
-
-    return jax.tree_util.tree_map(lambda x: np.asarray(x), tree)
 
 
 def _jsonable(obj: Any) -> Any:

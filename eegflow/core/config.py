@@ -71,7 +71,8 @@ class PreprocessConfig:
     # "filtfilt": exact zero-phase IIR parity with scipy.signal.filtfilt
     #             (sequential scan over time — used for oracle parity).
     # "fft":      zero-phase FFT-domain filter with the same |H|^2 magnitude
-    #             response — the TPU north star (one rfft/irfft, MXU/VPU friendly).
+    #             response — one rfft/irfft on device instead of a sequential
+    #             scan over time.
     filter_method: str = "fft"
     std_floor: float = 1e-10                   # ref 02:148
     train_frac: float = 0.70                   # ref 02:238
@@ -105,7 +106,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """EEGFormer architecture (eegflow.nn.transformer) — a TPU-first
+    """EEGFormer architecture (eegflow.nn.transformer) — an
     attention-only alternative to the BiLSTM flagship. Beyond the reference's
     scope (its ``MultiHeadAttention``, ref 04_lstm_model.py:73-109, is dead
     code); selected by passing this config wherever a ``ModelConfig`` goes —
@@ -149,7 +150,8 @@ class TrainConfig:
     # (ref 04:572-584) and is what the real-data parity runner uses.
     selection_metric: str = "mcc"
     seed: int = 42
-    bf16: bool = True                          # TPU analogue of FP16 AMP
+    # bf16 matmuls with f32 accumulation (the reference's FP16 AMP)
+    bf16: bool = True
     augment: bool = True
     noise_std: float = 0.01                    # ref 04:862
     max_shift: int = 5                         # circular time-shift augmentation
@@ -160,8 +162,8 @@ class TrainConfig:
     aug_channel_dropout: float = 0.0
     # Fourier phase-surrogate copies (amplitude spectrum kept bit-exact,
     # waveform randomized): the strongest anti-subject-memorization
-    # regularizer when the target is spectral (see the round-3 synthetic-gap
-    # diagnosis, docs/ROUND3_RESULTS.md). With aug_fresh_surrogates the
+    # regularizer when the target is spectral (round-3 synthetic-gap
+    # diagnosis; docs/accuracy/gap_variants.json). With aug_fresh_surrogates the
     # surrogate rows are regenerated ON DEVICE with fresh draws every epoch
     # (train.data.make_surrogate_refresher) instead of staying static.
     aug_phase_surrogates: int = 0
@@ -173,13 +175,9 @@ class TrainConfig:
     auto_small_subject_reg: bool = True
     weighted_sampling: bool = True
     data_axis: str = "data"                    # mesh axis name for DP
-    # LSTM implementation: "scan" (XLA lax.scan recurrence), "pallas" (fused
-    # VMEM-resident AMP kernels, bit-exact vs scan), or "auto" (default) —
-    # pallas on TPU, scan elsewhere. Evidence for the auto mapping:
-    # device-trace on v5e at B=512 measured pallas 41.8 ms/step vs scan
-    # 184.4 ms/step for training and 12.0 vs 67.3 ms/batch for coupled
-    # inference (BENCH_r03 / docs/ROUND3_RESULTS.md); on CPU the pallas
-    # kernels only run in interpret mode.
+    # LSTM implementation: "auto" (default) or "scan" — both run the XLA
+    # lax.scan recurrence (eegflow.nn.lstm.resolve_lstm_impl). "pallas" named
+    # a removed fused kernel and raises a ValueError.
     lstm_impl: str = "auto"
 
 

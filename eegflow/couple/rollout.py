@@ -5,7 +5,7 @@ batched GPU LSTM inference, then a *per-sample Python loop* of scipy ODE
 solves on CPU. Here the classifier forward, softmax, rate modulation,
 initial-state inference, the whole batch of ODE solves (exact expm
 propagators, one per sample), and the final-state thresholding fuse into ONE
-jitted program — the single biggest structural win of the TPU rebuild.
+jitted program.
 """
 
 from __future__ import annotations
@@ -118,21 +118,13 @@ def make_spmd_rollout(
 ):
     """Explicit shard_map coupled rollout: ``roll(params, x, k_base) -> dict``.
 
-    Each device runs the complete per-shard rollout program, so the fused
-    pallas kernels stay usable on TPU meshes (the implicit batch-sharded jit
-    must fall back to scan — ``pallas_call`` has no GSPMD partitioning rule).
-    This gives the stage-06 hot path (ref 06:308-406 phase 2) the measured
-    5.6x pallas coupled-inference advantage per chip times the mesh's DP
-    width. Inputs: params/k_base replicated, ``x`` sharded on ``axis_name``;
-    every output is batch-leading and comes back sharded the same way.
+    Each device runs the complete per-shard rollout program of the stage-06
+    hot path (ref 06:308-406 phase 2). Inputs: params/k_base replicated,
+    ``x`` sharded on ``axis_name``; every output is batch-leading and comes
+    back sharded the same way.
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
-
-    from eegflow.nn.lstm import resolve_lstm_impl
-
-    # per-device program: resolve "auto" WITHOUT the mesh (pallas on TPU)
-    impl = resolve_lstm_impl(lstm_impl)
 
     @functools.partial(
         shard_map,
@@ -143,7 +135,8 @@ def make_spmd_rollout(
     )
     def spmd_rollout(params, x, k_base):
         return _rollout_core(params, x, k_base, model_cfg, forecast_steps,
-                             alpha, rate_floor, init_threshold, bf16, impl)
+                             alpha, rate_floor, init_threshold, bf16,
+                             lstm_impl)
 
     return jax.jit(spmd_rollout)
 
@@ -164,14 +157,11 @@ def predict_batch(
     for the HTTP server, where multi-second recompiles would stall requests.
 
     With ``mesh`` (a 1-D data mesh) the batch axis is sharded across the
-    mesh's devices and the whole fused rollout runs SPMD — the reference's
-    phase-2 per-sample CPU loop (ref 06:367-406) becomes an 8-chip program.
-    On TPU meshes the explicit per-device :func:`make_spmd_rollout` path is
-    used so the fused pallas kernels survive the sharding (the implicit jit
-    would fall back to scan); elsewhere the implicit NamedSharding path runs.
-    Results are bitwise-identical to the single-device path (every op is
-    per-sample). ``rollout_step`` injects a prebuilt spmd rollout (tests, or
-    reuse across calls).
+    mesh's devices and the whole fused rollout runs as one implicit
+    NamedSharding program — the reference's phase-2 per-sample CPU loop
+    (ref 06:367-406) becomes a multi-device program. Every op is per-sample,
+    so results match the single-device path. ``rollout_step`` injects a
+    prebuilt :func:`make_spmd_rollout` (tests, or reuse across calls).
     """
     steps = forecast_steps or model.coupling.forecast_steps
     n = len(x)
@@ -179,24 +169,8 @@ def predict_batch(
     lstm_impl = model.lstm_impl
     n_dev = 1
     if mesh is not None:
-        from eegflow.nn.lstm import resolve_lstm_impl
         from eegflow.train.mesh import replicate_to_mesh
 
-        if rollout_step is None and jax.default_backend() == "tpu":
-            # explicit per-device shard_map rollout keeps the pallas kernels
-            # on TPU meshes (measured 5.6x over scan for coupled inference,
-            # docs/ROUND3_RESULTS.md)
-            rollout_step = make_spmd_rollout(
-                model.model_cfg, mesh, forecast_steps=steps,
-                alpha=model.coupling.coupling_strength,
-                rate_floor=model.coupling.rate_floor,
-                init_threshold=model.coupling.init_threshold,
-                lstm_impl=lstm_impl)
-        else:
-            # the implicit batch-sharded jit must not route through
-            # pallas_call (no GSPMD partitioning rule) — resolve "auto"
-            # mesh-aware
-            lstm_impl = resolve_lstm_impl(lstm_impl, mesh=mesh)
         n_dev = int(np.prod(list(mesh.shape.values())))
         params = replicate_to_mesh(params, mesh)
         k_base = replicate_to_mesh(k_base, mesh)

@@ -26,11 +26,9 @@ from eegflow.nn.model import classifier_apply
 
 @functools.partial(jax.jit, static_argnames=("model_cfg",))
 def _batch_input_gradients(params, x: jnp.ndarray, model_cfg: ModelConfig) -> jnp.ndarray:
-    # AMP + the fused Pallas kernels: a small-batch f32 scan backward
-    # measured ~12 min for 100 windows on a v5e (tiny-batch f32 matmuls);
-    # the fused bf16 path runs it in seconds. Attributions are |grad|
+    # bf16 matmuls, like the train and eval steps. Attributions are |grad|
     # channel aggregates — AMP noise is far below ranking resolution.
-    kw = dict(train=False, compute_dtype=jnp.bfloat16, lstm_impl="auto")
+    kw = dict(train=False, compute_dtype=jnp.bfloat16)
     logits = classifier_apply(params, x, model_cfg, **kw)
     pred = jnp.argmax(logits, axis=-1)
 

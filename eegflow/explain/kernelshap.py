@@ -250,8 +250,7 @@ def kernel_shap_channel_importance(
         # (B, C) feature rows cross the host->device boundary
         tiled = jnp.broadcast_to(rows[:, None, :], (rows.shape[0], t, rows.shape[1]))
         logits = classifier_apply(p, tiled, model_cfg, train=False,
-                                  compute_dtype=jnp.bfloat16,
-                                  lstm_impl="auto")
+                                  compute_dtype=jnp.bfloat16)
         return jax.nn.softmax(logits, axis=-1)[:, 1]
 
     def f_batch(feat_rows: np.ndarray):

@@ -3,7 +3,7 @@
 Per channel: shuffle that channel's values across samples (n_permutations
 repeats) and record the accuracy drop vs baseline.
 
-TPU-first design: the evaluation windows go to the device ONCE; each
+Design: the evaluation windows go to the device ONCE; each
 channel's permuted stack is constructed ON DEVICE inside the jitted
 evaluation (a one-hot feature select — only the (R, N) permutation indices
 cross the host boundary per channel), and a few channels stay in flight so
@@ -50,12 +50,7 @@ def permutation_channel_importance(
         x, y = x[idx], y[idx]
     n = len(x)
     n_channels = x.shape[2]
-    # mesh-aware: sharded jit must not route through pallas_call (no GSPMD
-    # partitioning rule)
-    from eegflow.nn.lstm import resolve_lstm_impl
-
-    lstm_impl = resolve_lstm_impl("auto", mesh=mesh)
-    eval_step = make_eval_step(model_cfg, lstm_impl=lstm_impl)
+    eval_step = make_eval_step(model_cfg)
 
     def predictions(data: np.ndarray) -> np.ndarray:
         probs = predict_probs(params, data, model_cfg, batch_size,
@@ -74,8 +69,7 @@ def permutation_channel_importance(
         onehot = (jnp.arange(x_dev.shape[-1]) == ch)
         stacked = jnp.where(onehot, permuted, base)
         logits = classifier_apply(p, stacked, model_cfg, train=False,
-                                  compute_dtype=jnp.bfloat16,
-                                  lstm_impl=lstm_impl)
+                                  compute_dtype=jnp.bfloat16)
         preds = jnp.argmax(logits, axis=-1).reshape(r, -1)
         return jnp.mean(preds == y_dev[None, :], axis=1)
 
@@ -83,7 +77,7 @@ def permutation_channel_importance(
     y_dev = jnp.asarray(y)
     if mesh is not None:
         # shard the sample axis; sharding propagates through the permuted
-        # gather + forward (collectives over ICI), replicated params
+        # gather + forward, replicated params
         from eegflow.train.mesh import replicate_to_mesh, shard_batch
 
         n_dev = int(np.prod(list(mesh.shape.values())))

@@ -1,6 +1,6 @@
 """ODE parameter fitting: on-device differential evolution + L-BFGS-B polish.
 
-TPU-first redesign of the reference's fit (ref: 05_ode_model.py:244-322),
+An on-device redesign of the reference's fit (ref: 05_ode_model.py:244-322),
 which drives ``scipy.optimize.differential_evolution`` through a Python loss
 that re-enters scipy's LSODA integrator per candidate — thousands of host
 round-trips. Here the *entire population* is evaluated as one batched RK4

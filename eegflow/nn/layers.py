@@ -9,7 +9,6 @@ Linear: W, b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Optional
 
 import jax
@@ -28,8 +27,8 @@ def dense_init(key: jax.Array, in_dim: int, out_dim: int) -> Dict[str, jnp.ndarr
 def dense_apply(
     params: Dict[str, jnp.ndarray], x: jnp.ndarray, compute_dtype=None
 ) -> jnp.ndarray:
-    """x @ W + b. With ``compute_dtype=bfloat16`` the matmul runs on the MXU in
-    bf16 with float32 accumulation; params stay float32."""
+    """x @ W + b. With ``compute_dtype=bfloat16`` the matmul runs in bf16
+    with float32 accumulation; params stay float32."""
     w, b = params["w"], params["b"]
     if compute_dtype is not None:
         y = jnp.dot(x.astype(compute_dtype), w.astype(compute_dtype),
@@ -59,58 +58,31 @@ def _rbg_key(key: jax.Array) -> jax.Array:
     """Re-seed ``key`` as an ``rbg`` PRNG key (same derivation tree, cheaper
     bits).
 
-    Threefry bit generation is pure VPU arithmetic in XLA (~4 ms/step of the
-    B=512 train step goes to the three dropout fusions); ``rbg`` lowers to the
-    TPU's RngBitGenerator HLO instead. Key *derivation* (split/fold_in) stays
-    threefry — only the final bit draw swaps — so mask streams remain
-    deterministic per seed. rbg bit order is only guaranteed stable per
-    backend+compiler, which is fine for dropout masks (any fixed Bernoulli
-    stream is a valid mask) but NOT for anything that must be reproducible
-    across platforms — hence opt-in via EEGFLOW_RBG_DROPOUT."""
+    Threefry bit generation is pure elementwise arithmetic in XLA, while
+    ``rbg`` lowers to XLA's ``RngBitGenerator`` op. Key *derivation*
+    (split/fold_in) stays threefry — only the final bit draw swaps — so mask
+    streams remain deterministic per seed. rbg bit order is only guaranteed
+    stable per backend+compiler, which is fine for dropout masks (any fixed
+    Bernoulli stream is a valid mask) but not for anything that must be
+    reproducible across platforms."""
     data = jax.random.key_data(key).astype(jnp.uint32).reshape(-1)
     return jax.random.wrap_key_data(jnp.concatenate([data, data])[:4],
                                     impl="rbg")
 
 
-def refresh_flags() -> None:
-    """Re-read EEGFLOW_RBG_DROPOUT / EEGFLOW_DROP8 (see _rbg_key / dropout)
-    — same in-process A/B contract as eegflow.nn.pallas_lstm.refresh_flags."""
-    # DEFAULT since round-5 (measured: dual_rbg 39.50 vs 39.77 ms/step,
-    # docs/ab_r5/ab_multi2.json). Masks stay deterministic per seed on a
-    # given backend; set =0 for cross-platform-stable threefry streams.
-    globals()["_RBG_DROPOUT"] = (
-        os.environ.get("EEGFLOW_RBG_DROPOUT", "1") == "1")
-    # DEFAULT since round-5 (measured: 38.10 vs 39.50 ms/step — the three
-    # dropout fusions are bit-generation-bound; docs/ab_r5/ab_multi3.json).
-    # Set =0 to restore 32-bit-draw jax.random.bernoulli masks.
-    globals()["_DROP8"] = (
-        os.environ.get("EEGFLOW_DROP8", "1") == "1")
-
-
-refresh_flags()
-
-
 def dropout_mask(key: jax.Array, rate: float, shape) -> jnp.ndarray:
-    """Boolean KEEP-mask, drawn exactly as :func:`dropout` draws it under
-    whatever PRNG flags are active — the single source of truth for mask
-    patterns, shared with the kernels' uint8-mask path (EEGFLOW_MASK_DROPOUT)
-    so select-mode and in-kernel-mode reproduce identical streams."""
+    """Boolean KEEP-mask for :func:`dropout`.
+
+    The Bernoulli draw uses 8 random bits per element from an ``rbg`` key
+    (:func:`_rbg_key`) instead of ``jax.random.bernoulli``'s 32 threefry
+    bits. The keep probability quantizes to ``round(keep*256)/256`` (<=0.2%
+    relative for the 0.2-0.5 rates used here); the ``1/keep`` rescale keeps
+    the nominal value, so E[output] shifts by the same <=0.2% during
+    training only. Mask streams stay deterministic per seed.
+    """
     keep = 1.0 - rate
-    if _RBG_DROPOUT:
-        key = _rbg_key(key)
-    if _DROP8:
-        # A/B flag (EEGFLOW_DROP8=1): draw the Bernoulli from 8 random bits
-        # per element instead of bernoulli's 32 — the three dropout fusions
-        # of the B=512 train step are bit-generation-bound (threefry is pure
-        # VPU arithmetic; the r5 residue trace puts them at 4.3 ms/step), so
-        # 4x fewer generated bits attacks their dominant term. The keep
-        # probability quantizes to round(keep*256)/256 (<=0.2% relative for
-        # the 0.3-0.5 rates used here; the 1/keep rescale keeps the nominal
-        # value, so E[output] shifts by the same <=0.2% during training
-        # only). Mask streams stay deterministic per seed.
-        thresh = jnp.uint8(max(1, min(255, int(round(keep * 256.0)))))
-        return jax.random.bits(key, shape, jnp.uint8) < thresh
-    return jax.random.bernoulli(key, keep, shape)
+    thresh = jnp.uint8(max(1, min(255, int(round(keep * 256.0)))))
+    return jax.random.bits(_rbg_key(key), shape, jnp.uint8) < thresh
 
 
 def dropout(

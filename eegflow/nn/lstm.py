@@ -1,12 +1,12 @@
-"""Multi-layer bidirectional LSTM as MXU-friendly scans.
+"""Multi-layer bidirectional LSTM as ``lax.scan`` recurrences.
 
 Replaces the reference's cuDNN ``nn.LSTM(hidden, 3 layers, bidirectional,
-dropout=0.4)`` (ref 04_lstm_model.py:181-188). TPU-first design:
+dropout=0.4)`` (ref 04_lstm_model.py:181-188):
 
 * The input contribution ``x @ W_ih`` for ALL timesteps is hoisted out of the
-  recurrence into one large (B*T, D) x (D, 4H) matmul — a single well-tiled
-  MXU call — so the ``lax.scan`` body only carries the (B, H) x (H, 4H)
-  recurrent matmul plus elementwise gate math.
+  recurrence into one large (B*T, D) x (D, 4H) matmul, so the ``lax.scan``
+  body only carries the (B, H) x (H, 4H) recurrent matmul plus elementwise
+  gate math.
 * Gate order i, f, g, o and fused bias match torch's convention so weights
   and unit tests are directly comparable.
 * Optional bf16 compute: matmuls run in bfloat16 with float32 accumulation;
@@ -14,10 +14,6 @@ dropout=0.4)`` (ref 04_lstm_model.py:181-188). TPU-first design:
 * Bidirectional = the same scan over the time-reversed sequence, concatenated
   feature-wise; layers stack with inter-layer dropout like torch (applied to
   every layer output except the last).
-
-A fused Pallas kernel for the recurrence lives in
-:mod:`eegflow.nn.pallas_lstm`; this module is the reference implementation it
-is tested against.
 """
 
 from __future__ import annotations
@@ -103,27 +99,24 @@ def lstm_layer_apply(
     return jnp.swapaxes(hs, 0, 1)  # (B, T, H)
 
 
-def resolve_lstm_impl(impl: Optional[str], mesh=None) -> str:
-    """Resolve ``"auto"`` to the fastest implementation for the backend.
+LSTM_IMPLS = ("auto", "scan")
 
-    Evidence (device-trace, v5e, B=512/T=256/H=256x3 — BENCH_r03 /
-    docs/ROUND3_RESULTS.md): the fused pallas kernels run the train step in
-    41.8 ms vs 184.4 ms for the scan path (4.4x) and coupled inference 5.6x
-    faster, so TPU resolves to ``"pallas"``. Off-TPU the pallas kernels only
-    run in (slow) interpret mode, so everything else resolves to ``"scan"``.
 
-    With a ``mesh`` on the IMPLICIT (jit + NamedSharding) path, ``"auto"``
-    stays on ``"scan"``: ``pallas_call`` has no GSPMD partitioning rule, so
-    a batch-sharded jit over the kernels would replicate or fail to lower.
-    The explicit ``shard_map`` path runs per-device programs and may pass
-    ``mesh=None`` here (each shard is a single-device call). An explicit
-    ``impl="pallas"`` is always respected.
+def resolve_lstm_impl(impl: Optional[str]) -> str:
+    """Resolve ``TrainConfig.lstm_impl`` to the recurrence that runs.
+
+    ``"auto"`` (or ``None``) and ``"scan"`` both mean the ``lax.scan`` layer
+    above, which is the only LSTM implementation. ``"pallas"`` named a fused
+    recurrence kernel that was removed; asking for it is an error rather
+    than a silent fallback.
     """
-    if impl is not None and impl != "auto":
-        return impl
-    if mesh is not None:
+    if impl is None or impl in LSTM_IMPLS:
         return "scan"
-    return "pallas" if jax.default_backend() == "tpu" else "scan"
+    if impl == "pallas":
+        raise ValueError(
+            "lstm_impl='pallas': the fused Pallas LSTM kernel was removed; "
+            "use 'auto' or 'scan' (the lax.scan recurrence)")
+    raise ValueError(f"unknown lstm_impl {impl!r}; expected one of {LSTM_IMPLS}")
 
 
 def bilstm_stack_init(
@@ -149,223 +142,31 @@ def bilstm_stack_apply(
     train: bool = False,
     dropout_key: Optional[jax.Array] = None,
     compute_dtype=None,
-    impl: str = "scan",
     input_dropout: float = 0.0,
     input_dropout_key: Optional[jax.Array] = None,
-    return_parts: bool = False,
-    input_predropped: bool = False,
 ) -> jnp.ndarray:
     """(B, T, D) -> (B, T, H*n_dir); inter-layer dropout like torch nn.LSTM.
 
-    ``input_predropped`` declares that ``x`` ALREADY carries the input
-    dropout (rate ``input_dropout``, inverted scaling, exact zeros at
-    dropped positions — e.g. the fused input block's folded-dropout output,
-    eegflow.nn.pallas_input): the pallas path then only arms the first
-    layer's mask_from_x recovery instead of dropping again.
-
-    ``impl='pallas'`` routes each direction through the fused Pallas
-    recurrence kernel (bit-exact, training-safe via custom_vjp);
-    ``impl='auto'`` resolves per backend (:func:`resolve_lstm_impl`).
-    ``input_dropout`` applies dropout to ``x`` itself — the pallas path
-    folds it into the first layer's kernels as a mask (the caller should
-    then NOT pre-drop ``x``); the scan path applies it here directly.
-
-    ``return_parts=True`` returns a TUPLE of feature parts whose concat is
-    the stack output — on the pallas path a bidirectional final layer's
-    fwd/rev halves come back as two tensors so a fused pooling head
-    (``pool_head_fused``) can consume them without the (B, T, 2H) concat
-    ever existing in HBM; the scan path returns a 1-tuple.
+    ``input_dropout`` applies dropout to ``x`` itself before the first
+    layer. Each layer direction runs under the named scope
+    ``lstm_l{i}_{fwd|bwd}`` so a device trace can attribute its time.
     """
-    impl = resolve_lstm_impl(impl)
-    if (impl != "pallas" and input_dropout > 0.0 and train
-            and not input_predropped):
+    if input_dropout > 0.0 and train:
         x = dropout(x, input_dropout, input_dropout_key, train)
-    if impl == "pallas":
-        # Parts-based stack: a bidirectional layer's fwd/rev halves flow to
-        # the next layer as separate tensors (W_ih split row-wise in-kernel),
-        # so the inter-layer concatenate copies never exist in HBM. Dropout
-        # (input and inter-layer) is passed as uint8 masks applied inside
-        # the kernels — the dropped tensors and their XLA select fusions
-        # never exist in HBM either. Masks come from jax.random, so they
-        # stay sharding-invariant.
-        from eegflow.nn.pallas_lstm import (_auto_interpret,
-                                            bilstm_layer_fused_parts,
-                                            lstm_layer_fused_parts)
-
-        use_bf16 = compute_dtype == jnp.bfloat16
-        # Compiled TPU + AMP: dropout masks come from the in-kernel hardware
-        # PRNG (seeded from the jax key's raw words - zero HBM traffic).
-        # Elsewhere (CPU interpret mode, f32) dropout applies as plain XLA
-        # select fusions on the parts. The kernels' uint8-mask path is the
-        # oracle the PRNG path is validated against
-        # (tools/check_prng_dropout.py + the direct-call kernel tests).
-        import os as _os
-
-        # Default OFF: A/B device profiles at B=512 measured the XLA select
-        # fusions at ~7 ms/step but the in-kernel PRNG regeneration at
-        # ~10 ms/step (prng_random_bits is not free); set
-        # EEGFLOW_KERNEL_DROPOUT=1 to use the (validated) in-kernel path.
-        use_prng = (use_bf16 and not _auto_interpret(None)
-                    and _os.environ.get("EEGFLOW_KERNEL_DROPOUT", "0") == "1")
-        # A/B candidate (EEGFLOW_MASK_DROPOUT=1): XLA generates only uint8
-        # masks (threefry + compare, (B,T,H) bytes) and the kernels apply
-        # them on load — the dropped f32 tensors and their select fusions
-        # never exist in HBM (a full (B,T,H) f32 write+read saved per part
-        # vs the default fwd-only-select path). Uses the kernels' mask path
-        # (the PRNG path's validation oracle), so gradients are exact.
-        use_masks = (not use_prng and _os.environ.get(
-            "EEGFLOW_MASK_DROPOUT", "0") == "1")
-        # DEFAULT (measured winner, v5e B=512: 36.54 ms/step MFU 47.4% vs
-        # 38.10 select — docs/ab_r5/ab_multi4.json): the PRODUCING layer's
-        # forward kernel writes the inter-layer inverted-dropout copy
-        # itself, so the XLA dropout fusion (read h + bit-gen + select +
-        # write the dropped copy, ~2.9 ms/step at B=512 under DROP8) never
-        # exists; the backward contract stays mask_from_x recovery, exactly
-        # as the select path. Mode 1 (the default): mask from the forward
-        # kernel's hardware PRNG (direction-salted; compiled TPU only —
-        # generated ONCE, in the kernel with VPU slack, unlike
-        # KERNEL_DROPOUT's fwd+bwd double generation; TPU-validated by
-        # tools/check_dropw.py). Mode 2: XLA generates the uint8 masks (the
-        # cheap DROP8/rbg bit path) and the kernel applies them on write —
-        # bit-identical streams to the select default, and CPU-testable.
-        # EEGFLOW_FWD_DROPW=0 restores the XLA-select path.
-        dropw_mode = int(_os.environ.get("EEGFLOW_FWD_DROPW", "1") or 0)
-        use_dropw = (use_bf16 and not use_prng and not use_masks
-                     and dropw_mode > 0
-                     and (dropw_mode == 2 or not _auto_interpret(None)))
-        # A/B candidate (EEGFLOW_INPUT_PRNG=1): in-kernel hardware-PRNG
-        # dropout for the INPUT only. KERNEL_DROPOUT lost because it
-        # regenerated H=256-wide masks in both kernels of every layer; the
-        # input is 61-wide (~1/4 the bits) and its XLA fusion is the third
-        # dropout fusion in the step trace (~0.9 ms at B=512 under DROP8).
-        # The path itself is the TPU-validated one (check_prng_dropout.py).
-        use_inprng = (use_bf16 and not use_prng and not use_masks
-                      and not _auto_interpret(None)
-                      and _os.environ.get("EEGFLOW_INPUT_PRNG", "0") == "1")
-
-        def make_masks(parts_, rate, keys_):
-            # same per-part keys AND the same PRNG path as the select path
-            # (layers.dropout_mask: threefry / rbg default / DROP8) ->
-            # bit-identical patterns
-            from eegflow.nn.layers import dropout_mask
-
-            return tuple(
-                dropout_mask(k, rate, p.shape).astype(jnp.uint8)
-                for k, p in zip(keys_, parts_))
-
-        def key_seed(key):
-            return jax.random.key_data(key).astype(jnp.uint32).view(
-                jnp.int32)[:2]
-
-        def dropout_fwd_only(p, rate, key):
-            # forward = inverted dropout, backward = IDENTITY: the layer's
-            # mask_from_x recovers the mask from the dropped zeros and owns
-            # the backward (in-kernel), so the XLA dropout VJP must not also
-            # apply it (that would double-mask and double-scale)
-            d = dropout(p, rate, key, True)
-            return p + jax.lax.stop_gradient(d - p)
-
-        # In the (default) XLA-dropout mode the dropped parts feed the
-        # kernels directly and the BACKWARD mask is recovered in-kernel from
-        # the zeros of the dropped input (mask_from_x) — the XLA
-        # dropout-backward fusions (~4 ms/step at B=512) never exist.
-        parts = (x,)
-        keep, seed, from_x, masks = 1.0, None, False, None
-        if input_predropped and input_dropout > 0.0 and train:
-            keep, from_x = 1.0 - input_dropout, True
-        elif input_dropout > 0.0 and train and input_dropout_key is not None:
-            if use_prng or use_inprng:
-                keep = 1.0 - input_dropout
-                seed = key_seed(input_dropout_key)
-            elif use_masks:
-                masks = make_masks(parts, input_dropout, (input_dropout_key,))
-                keep = 1.0 - input_dropout
-            else:
-                parts = (dropout_fwd_only(x, input_dropout,
-                                          input_dropout_key),)
-                keep, from_x = 1.0 - input_dropout, True
-        n = len(layers)
-        for idx, layer in enumerate(layers):
-            drop_here = (idx < n - 1 and inter_dropout > 0.0 and train
-                         and dropout_key is not None)
-            out_keep_l, out_seed_l, out_masks_l = 1.0, None, None
-            if use_dropw and drop_here:
-                key = jax.random.fold_in(dropout_key, idx)
-                out_keep_l = 1.0 - inter_dropout
-                if dropw_mode == 2:
-                    # the SAME per-part keys and dropout_mask stream as the
-                    # select default — bit-identical masks, applied on the
-                    # kernel's output write instead of by an XLA fusion
-                    from eegflow.nn.layers import dropout_mask
-
-                    n_out = 2 if "bwd" in layer else 1
-                    oshape = (parts[0].shape[0], parts[0].shape[1],
-                              layer["fwd"]["w_hh"].shape[0])
-                    out_masks_l = tuple(
-                        dropout_mask(jax.random.fold_in(key, j),
-                                     inter_dropout, oshape).astype(jnp.uint8)
-                        for j in range(n_out))
-                else:
-                    # shared-seed mode: when this layer already carries an
-                    # in-kernel input seed (EEGFLOW_INPUT_PRNG, layer 0),
-                    # its output masks derive from that seed instead — the
-                    # kernel takes one SMEM seed ref, and the streams stay
-                    # independent via the per-purpose salts
-                    out_seed_l = None if seed is not None else key_seed(key)
-            if "bwd" in layer:
-                # both directions under one custom VJP: their input
-                # cotangents sum inside the reverse backward kernel
-                parts = bilstm_layer_fused_parts(
-                    layer["fwd"], layer["bwd"], parts, use_bf16, masks, keep,
-                    seed, from_x, out_keep=out_keep_l, out_seed=out_seed_l,
-                    out_masks=out_masks_l)
-            else:
-                parts = (lstm_layer_fused_parts(
-                    layer["fwd"]["w_ih"], layer["fwd"]["w_hh"],
-                    layer["fwd"]["b"], parts, False, use_bf16, masks, keep,
-                    seed, from_x, out_keep=out_keep_l, out_seed=out_seed_l,
-                    out_mask=out_masks_l[0] if out_masks_l else None),)
-            if drop_here and use_dropw:
-                # parts are already the kernels' dropped copies; the next
-                # layer recovers the mask from the zeros (mask_from_x)
-                keep, seed, from_x, masks = 1.0 - inter_dropout, None, True, None
-            elif drop_here:
-                key = jax.random.fold_in(dropout_key, idx)
-                if use_prng:
-                    keep, seed, from_x = 1.0 - inter_dropout, key_seed(key), False
-                elif use_masks:
-                    masks = make_masks(
-                        parts, inter_dropout,
-                        tuple(jax.random.fold_in(key, j)
-                              for j in range(len(parts))))
-                    keep = 1.0 - inter_dropout
-                else:
-                    seed = None
-                    parts = tuple(
-                        dropout_fwd_only(p, inter_dropout,
-                                         jax.random.fold_in(key, j))
-                        for j, p in enumerate(parts))
-                    keep, from_x = 1.0 - inter_dropout, True
-            else:
-                keep, seed, from_x, masks = 1.0, None, False, None
-        if return_parts:
-            return parts
-        return parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=-1)
-
-    def run_dir(p, data, reverse):
-        return lstm_layer_apply(p, data, reverse=reverse,
-                                compute_dtype=compute_dtype)
-
     out = x
     n = len(layers)
     for idx, layer in enumerate(layers):
-        fwd = run_dir(layer["fwd"], out, False)
+        with jax.named_scope(f"lstm_l{idx}_fwd"):
+            fwd = lstm_layer_apply(layer["fwd"], out, reverse=False,
+                                   compute_dtype=compute_dtype)
         if "bwd" in layer:
-            bwd = run_dir(layer["bwd"], out, True)
+            with jax.named_scope(f"lstm_l{idx}_bwd"):
+                bwd = lstm_layer_apply(layer["bwd"], out, reverse=True,
+                                       compute_dtype=compute_dtype)
             out = jnp.concatenate([fwd, bwd], axis=-1)
         else:
             out = fwd
         if idx < n - 1 and inter_dropout > 0.0 and train:
             key = jax.random.fold_in(dropout_key, idx) if dropout_key is not None else None
             out = dropout(out, inter_dropout, key, train)
-    return (out,) if return_parts else out
+    return out

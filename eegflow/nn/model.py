@@ -28,7 +28,7 @@ from eegflow.nn.layers import (
     layer_norm_apply,
     layer_norm_init,
 )
-from eegflow.nn.lstm import bilstm_stack_apply, bilstm_stack_init
+from eegflow.nn.lstm import bilstm_stack_apply, bilstm_stack_init, resolve_lstm_impl
 
 
 def classifier_init(key: jax.Array, config: ModelConfig) -> Dict[str, Any]:
@@ -69,12 +69,12 @@ def classifier_apply(
 ) -> jnp.ndarray | Tuple[jnp.ndarray, jnp.ndarray]:
     """(B, T, C) windows -> (B, num_classes) logits (+ attention (B, T)).
 
-    ``compute_dtype=jnp.bfloat16`` runs all matmuls on the MXU in bf16 with
-    f32 accumulation — the TPU analogue of the reference's FP16 autocast
-    (ref 04:486-489). ``lstm_impl='pallas'`` uses the fused VMEM-resident
-    recurrence kernel (eegflow.nn.pallas_lstm); ``'auto'`` (default) picks
-    pallas on TPU and scan elsewhere (see
-    eegflow.nn.lstm.resolve_lstm_impl for the measurement).
+    ``compute_dtype=jnp.bfloat16`` runs all matmuls in bf16 with f32
+    accumulation, the counterpart of the reference's FP16 autocast
+    (ref 04:486-489). ``lstm_impl`` is checked by
+    :func:`eegflow.nn.lstm.resolve_lstm_impl`; the recurrence is always the
+    ``lax.scan`` layer. The input block, the LN + attention pool and the head
+    run under named scopes so a device trace can attribute their time.
     """
     if isinstance(config, TransformerConfig):
         from eegflow.nn.transformer import transformer_apply
@@ -83,9 +83,7 @@ def classifier_apply(
             params, x, config, train=train, dropout_key=dropout_key,
             return_attention=return_attention, compute_dtype=compute_dtype)
 
-    from eegflow.nn.lstm import resolve_lstm_impl
-
-    lstm_impl = resolve_lstm_impl(lstm_impl)
+    resolve_lstm_impl(lstm_impl)
     d = config.dropout
     keys = {}
     if train and dropout_key is not None:
@@ -94,74 +92,20 @@ def classifier_apply(
             keys[n] = jax.random.fold_in(dropout_key, i)
 
     # input projection block (ref 04:173-178): Linear -> LN -> GELU -> Dropout(d/2)
-    # A/B flag EEGFLOW_FUSED_INPUT=1: one Pallas kernel pair (recomputing
-    # custom VJP) instead of ~6 XLA (B, T, H) sweeps — ~1 ms/step of the
-    # non-kernel residue at B=512 (eegflow.nn.pallas_input).
-    import os as _os
-
-    input_predropped = False
-    if (lstm_impl == "pallas"
-            and _os.environ.get("EEGFLOW_FUSED_INPUT", "0") == "1"):
-        from eegflow.nn.pallas_input import input_block_fused
-        from eegflow.nn.pallas_lstm import _auto_interpret
-
-        # with EEGFLOW_FWD_DROPW set, fold the input dropout (d/2) into the
-        # block's output write: the undropped y is needed by nobody (the
-        # block's backward recomputes from x), so the (B, T, H) dropout
-        # fusion disappears at zero extra HBM. The stack then consumes a
-        # pre-dropped input (mask_from_x recovery, same contract as its
-        # inter-layer dropw mode).
-        dropw_mode = int(_os.environ.get("EEGFLOW_FWD_DROPW", "1") or 0)
-        out_keep, out_seed, out_mask = 1.0, None, None
-        if dropw_mode > 0 and train and d > 0 and keys.get("inp") is not None:
-            if dropw_mode == 2:
-                from eegflow.nn.layers import dropout_mask
-
-                oshape = (x.shape[0], x.shape[1],
-                          params["input_proj"]["w"].shape[1])
-                out_mask = dropout_mask(keys["inp"], d / 2,
-                                        oshape).astype(jnp.uint8)
-                out_keep, input_predropped = 1.0 - d / 2, True
-            elif not _auto_interpret(None):
-                out_seed = jax.random.key_data(
-                    keys["inp"]).astype(jnp.uint32).view(jnp.int32)[:2]
-                out_keep, input_predropped = 1.0 - d / 2, True
-        h = input_block_fused(params["input_proj"], params["input_norm"], x,
-                              bf16=compute_dtype == jnp.bfloat16,
-                              out_keep=out_keep, out_seed=out_seed,
-                              out_mask=out_mask)
-    else:
+    with jax.named_scope("input_block"):
         h = dense_apply(params["input_proj"], x, compute_dtype)
         h = layer_norm_apply(params["input_norm"], h)
         h = gelu(h)
 
-    # BiLSTM stack with inter-layer dropout d (ref 04:181-188). The input
-    # dropout (d/2) is delegated to the stack: the pallas path folds it into
-    # the first layer's kernels as a uint8 mask / hardware-PRNG bits instead
-    # of materializing the dropped tensor in HBM.
-    use_fused_pool = lstm_impl == "pallas" and config.use_attention
+    # BiLSTM stack with inter-layer dropout d (ref 04:181-188); the input
+    # dropout (d/2) is applied by the stack
     h = bilstm_stack_apply(
         params["lstm"], h, inter_dropout=d if config.num_layers > 1 else 0.0,
         train=train, dropout_key=keys.get("lstm"), compute_dtype=compute_dtype,
-        impl=lstm_impl, input_dropout=d / 2,
-        input_dropout_key=keys.get("inp"), return_parts=use_fused_pool,
-        input_predropped=input_predropped,
+        input_dropout=d / 2, input_dropout_key=keys.get("inp"),
     )
 
-    if use_fused_pool:
-        # one kernel pair fuses LayerNorm + attention pooling over the parts
-        # (training-safe custom VJP; no (B, T, 2H) concat in HBM)
-        from eegflow.nn.pallas_attention import pool_head_fused
-
-        ctx_parts, raw_scores = pool_head_fused(
-            params.get("lstm_norm"), params["attention"], h,
-            use_ln=config.use_layer_norm,
-            bf16=compute_dtype == jnp.bfloat16)
-        context = (ctx_parts[0] if len(ctx_parts) == 1
-                   else jnp.concatenate(ctx_parts, axis=-1))
-        attn = jax.nn.softmax(raw_scores + params["attention"]["score"]["b"][0],
-                              axis=-1)
-    else:
+    with jax.named_scope("attention_pool"):
         if config.use_layer_norm:
             h = layer_norm_apply(params["lstm_norm"], h)
 
@@ -173,11 +117,12 @@ def classifier_apply(
             attn = jnp.full(h.shape[:2], 1.0 / h.shape[1], h.dtype)
 
     # classifier head (ref 04:196-204)
-    z = gelu(dense_apply(params["head1"], context, compute_dtype))
-    z = dropout(z, d, keys.get("h1"), train)
-    z = gelu(dense_apply(params["head2"], z, compute_dtype))
-    z = dropout(z, d, keys.get("h2"), train)
-    logits = dense_apply(params["head3"], z, compute_dtype)
+    with jax.named_scope("head"):
+        z = gelu(dense_apply(params["head1"], context, compute_dtype))
+        z = dropout(z, d, keys.get("h1"), train)
+        z = gelu(dense_apply(params["head2"], z, compute_dtype))
+        z = dropout(z, d, keys.get("h2"), train)
+        logits = dense_apply(params["head3"], z, compute_dtype)
 
     if return_attention:
         return logits, attn

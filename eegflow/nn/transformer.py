@@ -1,12 +1,11 @@
-"""EEGFormer: a TPU-first attention-only EEG window classifier.
+"""EEGFormer: an attention-only EEG window classifier.
 
 A second model family beyond the reference's scope (the reference defines
 ``MultiHeadAttention`` but never wires it into a model —
 ref 04_lstm_model.py:73-109, dead code). Where the BiLSTM's recurrence is a
-serial chain the MXU cannot parallelize over time, a transformer encoder is
-pure batched matmuls — every FLOP lands on the systolic array with no
-sequential dependence, so its attainable MFU ceiling is far higher than any
-recurrent model's on TPU.
+serial chain no matrix unit can parallelize over time, a transformer encoder
+is pure batched matmuls with no sequential dependence, so its attainable MFU
+ceiling is far higher than any recurrent model's.
 
 Architecture (pre-LN encoder):
 
@@ -92,8 +91,8 @@ def transformer_apply(
     """(B, T, C) windows -> (B, num_classes) logits (+ pooling attention (B, T)).
 
     Same contract as :func:`eegflow.nn.model.classifier_apply`; with
-    ``compute_dtype=jnp.bfloat16`` every matmul runs on the MXU in bf16 with
-    f32 accumulation.
+    ``compute_dtype=jnp.bfloat16`` every matmul runs in bf16 with f32
+    accumulation.
     """
     d_rate = config.dropout
     t = x.shape[1]

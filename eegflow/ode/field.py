@@ -1,6 +1,6 @@
 """Three-state Active/Passive/Fatigued compartmental vector field.
 
-TPU-native re-design of the reference's ``CognitiveStateODE`` class
+A functional re-design of the reference's ``CognitiveStateODE`` class
 (ref: 05_ode_model.py:58-242): the model is a pure function of a rate *array*
 (shape ``(..., 6)``) instead of a mutable parameter dict, so it composes with
 ``jit``/``vmap``/``grad`` — a whole differential-evolution population or a
@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 RATE_NAMES: Tuple[str, ...] = ("k_ap", "k_af", "k_pa", "k_pf", "k_fa", "k_fp")
 
@@ -63,7 +64,11 @@ def apf_field(y: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
     """
     y_pos = jnp.maximum(y, 0.0)
     q = transition_matrix(k)
-    return jnp.einsum("...i,...ij->...j", y_pos, q)
+    # HIGHEST: at the default precision a GPU may run this f32 product in
+    # TF32, which breaks the RK4 solve's 1e-5 parity with scipy and the DE
+    # fit's loss; the product is 3x3 and costs nothing
+    return jnp.einsum("...i,...ij->...j", y_pos, q,
+                      precision=lax.Precision.HIGHEST)
 
 
 def steady_state(k: jnp.ndarray) -> jnp.ndarray:
@@ -82,8 +87,10 @@ def steady_state(k: jnp.ndarray) -> jnp.ndarray:
         [jnp.zeros(q.shape[:-2] + (3,), q.dtype), jnp.ones(q.shape[:-2] + (1,), q.dtype)],
         axis=-1,
     )
-    ata = jnp.einsum("...ki,...kj->...ij", a, a)
-    atb = jnp.einsum("...ki,...k->...i", a, b)
+    # HIGHEST: normal equations square the condition number; TF32 inputs
+    # would lose the stationary distribution's low digits
+    ata = jnp.einsum("...ki,...kj->...ij", a, a, precision=lax.Precision.HIGHEST)
+    atb = jnp.einsum("...ki,...k->...i", a, b, precision=lax.Precision.HIGHEST)
     return jnp.linalg.solve(ata, atb[..., None])[..., 0]
 
 

@@ -9,8 +9,13 @@ DE population) integrates as one XLA computation:
 * :func:`rk4_solve` — classic RK4 with ``substeps`` per output interval; the
   general path (works for the clamped/modulated field, differentiable).
 * :func:`expm_solve` — exact propagator ``expm(Q^T dt)`` applied by a scan;
-  machine-precision for the linear (simplex-interior) regime, and the fastest
-  path on TPU because the whole trajectory is one tiny matmul chain.
+  machine-precision for the linear (simplex-interior) regime, and the
+  fastest path because the whole trajectory is one tiny matmul chain.
+
+Every 3x3 product here passes ``precision=HIGHEST``: at the default precision
+a GPU may run f32 products in TF32 (about three decimal digits), which would
+break the 1e-5 parity with ``scipy.integrate.solve_ivp``. The products are
+3x3, so full f32 costs nothing measurable.
 * :func:`solve` — reference-parity wrapper matching the semantics of
   ``CognitiveStateODE.solve`` (ref 05:137-169): linspace grid, initial-state
   normalization, final clip-to-[0,1] + simplex renormalization.
@@ -27,6 +32,8 @@ import numpy as np
 from jax import lax
 
 from eegflow.ode.field import apf_field, transition_matrix
+
+_HIGHEST = lax.Precision.HIGHEST
 
 
 def _rk4_step(y: jnp.ndarray, k: jnp.ndarray, dt) -> jnp.ndarray:
@@ -71,8 +78,8 @@ def rk4_solve(
 def _expm_taylor(a: jnp.ndarray, order: int = 12, squarings: int = 4) -> jnp.ndarray:
     """Solve-free batched matrix exponential: scaling + Taylor + squaring.
 
-    ``jax.scipy.linalg.expm`` runs Pade with batched LU solves — slow on TPU
-    for many tiny (3x3) matrices. Here: scale by 2^-squarings (rate matrices
+    ``jax.scipy.linalg.expm`` runs Pade with batched LU solves — slow for
+    many tiny (3x3) matrices. Here: scale by 2^-squarings (rate matrices
     in this model have norm <~ 2.5, so the scaled norm is <~ 0.16), Horner-sum
     the Taylor series (pure batched matmuls), square back. Truncation error
     ~ 0.16^13/13! — far below f32 resolution; parity vs scipy is tested.
@@ -82,9 +89,12 @@ def _expm_taylor(a: jnp.ndarray, order: int = 12, squarings: int = 4) -> jnp.nda
     # Horner: E = I + A(I + A/2 (I + A/3 (...)))
     result = eye
     for n in range(order, 0, -1):
-        result = eye + jnp.einsum("...ij,...jk->...ik", a / n, result)
+        # HIGHEST: no TF32 on the card (module docstring)
+        result = eye + jnp.einsum("...ij,...jk->...ik", a / n, result,
+                                  precision=_HIGHEST)
     for _ in range(squarings):
-        result = jnp.einsum("...ij,...jk->...ik", result, result)
+        result = jnp.einsum("...ij,...jk->...ik", result, result,
+                            precision=_HIGHEST)
     return result
 
 
@@ -103,7 +113,8 @@ def expm_solve(
     y0 = jnp.asarray(y0)
 
     def step(y, _):
-        y_next = jnp.einsum("...ij,...j->...i", prop, y)
+        # HIGHEST: no TF32 on the card (module docstring)
+        y_next = jnp.einsum("...ij,...j->...i", prop, y, precision=_HIGHEST)
         return y_next, y_next
 
     _, traj = lax.scan(step, jnp.broadcast_to(y0, q.shape[:-2] + (3,)), None,
@@ -160,7 +171,7 @@ def solve_batch(
 
     This single call replaces the reference's per-sample Python ODE loops
     (ref 06:367-406, 08:264-276, 10:245-278) — the biggest structural win of
-    the TPU port. Simplex projection applied as in the reference solve.
+    the rebuild. Simplex projection applied as in the reference solve.
     """
     y0 = y0 / jnp.sum(y0, axis=-1, keepdims=True)
     if method == "expm":
@@ -180,7 +191,7 @@ def expm_solve_piecewise(
     the ``linspace(t0, t1, n_points)`` grid. All segment propagators
     ``expm(Q_s^T dt)`` are built in ONE batched Taylor evaluation, then a
     scan applies them — machine-precision for genuinely piecewise-constant
-    modulation, the TPU-native answer to the reference's time-varying-rate
+    modulation, the on-device answer to the reference's time-varying-rate
     solve (ref 05_ode_model.py:171-196) without per-step host callbacks.
     """
     ks = jnp.asarray(ks)
@@ -193,7 +204,8 @@ def expm_solve_piecewise(
     y0 = jnp.broadcast_to(jnp.asarray(y0), q.shape[1:-2] + (3,))
 
     def step(y, p):
-        y_next = jnp.einsum("...ij,...j->...i", p, y)
+        # HIGHEST: no TF32 on the card (module docstring)
+        y_next = jnp.einsum("...ij,...j->...i", p, y, precision=_HIGHEST)
         return y_next, y_next
 
     _, traj = lax.scan(step, y0, props)

@@ -107,7 +107,7 @@ def extract_features(
     """(N, T, C) windows -> (N, C*20) feature matrix, NaN/Inf scrubbed.
 
     Batched over ``batch_size`` windows to bound device memory like the
-    reference (ref 03:178), though on TPU far larger batches fit.
+    reference (ref 03:178), though on an accelerator far larger batches fit.
     """
     x = np.asarray(x, np.float32)
     n = x.shape[0]

@@ -1,15 +1,16 @@
-"""Zero-phase bandpass filtering, TPU-style.
+"""Zero-phase bandpass filtering on device.
 
 The reference uses ``scipy.signal.butter`` + ``filtfilt`` (4th-order
 Butterworth, 1-45 Hz, zero phase; ref 02_preprocessing.py:114-131). Two
 jit-able implementations are provided:
 
-* :func:`fft_zero_phase` — the TPU north star: multiply the signal's rfft by
+* :func:`fft_zero_phase` — the default: multiply the signal's rfft by
   the filter's squared magnitude response ``|H|^2``. filtfilt *is* a zero-phase
   filter with magnitude ``|H|^2``, so the two agree except within an edge
   transient that decays at the slowest-pole rate (~2 s at the 1 Hz band edge,
   fs=500) — negligible for minutes-long recordings, and one rfft/irfft pair is
-  massively faster than a 2xT sequential IIR on TPU. Documented deviation.
+  massively faster than a 2xT sequential IIR on an accelerator. Documented
+  deviation.
 * :func:`filtfilt_iir` — exact scipy ``filtfilt`` parity (odd-extension
   padding, ``lfilter_zi`` initial conditions, forward+backward pass) with the
   recursion as a ``lax.scan`` over time, channels vectorized across lanes.
@@ -172,7 +173,7 @@ def bandpass_filter(
 ) -> jnp.ndarray:
     """Bandpass along the last (time) axis; reference API (ref 02:114-131).
 
-    ``method='fft'`` is the TPU path; ``method='filtfilt'`` reproduces scipy
+    ``method='fft'`` is the default path; ``method='filtfilt'`` reproduces scipy
     exactly (sequential scan — use for parity runs/tests).
     """
     b, a = butter_bandpass(lowcut, highcut, fs, order)

@@ -2,8 +2,8 @@
 static-shape batching.
 
 The reference uses a ``WeightedRandomSampler`` + 8 DataLoader worker processes
-(ref 04_lstm_model.py:336-403). On TPU the whole (augmented) dataset is a
-single HBM-resident array; an epoch is one host-side index draw + jitted
+(ref 04_lstm_model.py:336-403). Here the whole (augmented) dataset is a
+single device-resident array; an epoch is one host-side index draw + jitted
 steps over static-shape batches — no worker processes, no per-batch H2D copies
 beyond the sharded device_put.
 """

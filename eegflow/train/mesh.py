@@ -1,14 +1,14 @@
 """Device mesh + sharding helpers: the framework's entire "distributed backend".
 
-The reference is single-GPU (SURVEY.md §2.11); the TPU-native equivalent is a
-1-D data mesh over ICI. Two styles are provided:
+The reference is single-GPU (SURVEY.md §2.11); here data parallelism is a
+1-D data mesh over the visible devices. Two styles are provided:
 
 * implicit: jit with ``NamedSharding`` — batch sharded on the 'data' axis,
   params replicated; XLA inserts the gradient all-reduce (psum) automatically
   from sharding propagation. This is the production path.
 * explicit: ``shard_map`` with a hand-written ``lax.pmean`` — used by the
-  multi-chip dry run and sharding tests, and as the scaffold for pipeline /
-  tensor axes if the model ever outgrows one chip.
+  multi-device dry run and sharding tests, and as the scaffold for pipeline /
+  tensor axes if the model ever outgrows one device.
 
 The mesh abstraction deliberately allows extra axes (e.g. ('data', 'model'))
 even though this workload only needs DP at reference scale.
@@ -53,26 +53,17 @@ def make_spmd_train_step(
 ) -> Callable:
     """Explicit-collective SPMD train step via shard_map + lax.pmean.
 
-    Per-shard gradients are averaged over the ICI with one pmean; optimizer
-    update runs replicated. Functionally identical to the implicit path —
+    Per-shard gradients are averaged with one pmean; the optimizer update
+    runs replicated. Functionally identical to the implicit path —
     kept as the explicit skeleton (and what dryrun_multichip exercises).
     """
     import optax
     from jax import shard_map
 
-    from eegflow.nn.losses import cross_entropy_loss
-    from eegflow.nn.model import classifier_apply
-    from eegflow.train.steps import TrainState
+    from eegflow.train.steps import TrainState, make_loss_fn
 
-    compute_dtype = jnp.bfloat16 if train_cfg.bf16 else None
-    cw = None if class_weights is None else jnp.asarray(class_weights)
-
-    def loss_fn(params, x, y, key):
-        logits = classifier_apply(
-            params, x, model_cfg, train=True, dropout_key=key,
-            compute_dtype=compute_dtype,
-        )
-        return cross_entropy_loss(logits, y, cw), logits
+    loss_fn = make_loss_fn(model_cfg, train_cfg.bf16, class_weights,
+                           train_cfg.lstm_impl)
 
     @functools.partial(
         shard_map,
@@ -85,7 +76,7 @@ def make_spmd_train_step(
         (loss, logits), grads = jax.value_and_grad(loss_fn, has_aux=True)(
             state.params, x, y, key
         )
-        grads = jax.lax.pmean(grads, axis_name)   # gradient all-reduce over ICI
+        grads = jax.lax.pmean(grads, axis_name)   # gradient all-reduce
         loss = jax.lax.pmean(loss, axis_name)
         correct = jax.lax.psum(jnp.sum(jnp.argmax(logits, -1) == y), axis_name)
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
@@ -101,10 +92,7 @@ def make_spmd_eval_step(
 ) -> Callable:
     """Explicit-collective SPMD eval: ``eval(params, x) -> probs``.
 
-    Each device runs a complete per-shard forward, so the fused pallas
-    kernels stay usable on TPU meshes (the implicit batch-sharded jit has
-    to fall back to scan — ``pallas_call`` has no GSPMD partitioning rule).
-    Inputs: params replicated, ``x`` sharded on ``axis_name``; output probs
+    Each device runs a complete per-shard forward. Inputs: params replicated, ``x`` sharded on ``axis_name``; output probs
     sharded the same way.
     """
     from jax import shard_map

@@ -1,7 +1,7 @@
 """Jitted train/eval steps.
 
 One ``train_step`` fuses forward, loss, backward, clip, AdamW update, and
-(on a mesh) the gradient all-reduce into a single XLA program — the TPU
+(on a mesh) the gradient all-reduce into a single XLA program — the
 replacement for the reference's autocast/GradScaler/accumulate/clip/step
 sequence (ref 04_lstm_model.py:486-507). Gradient accumulation uses
 ``optax.MultiSteps`` (clip applies to the averaged accumulated gradient, same
@@ -45,6 +45,27 @@ def make_optimizer(
     return tx
 
 
+def make_loss_fn(
+    model_cfg: ModelConfig,
+    bf16: bool,
+    class_weights: Optional[jnp.ndarray] = None,
+    lstm_impl: str = "auto",
+) -> Callable:
+    """``loss_fn(params, x, y, dropout_key) -> (loss, logits)`` of a train
+    step: the train-mode forward (dropout on) and the class-weighted CE."""
+    compute_dtype = jnp.bfloat16 if bf16 else None
+    cw = None if class_weights is None else jnp.asarray(class_weights)
+
+    def loss_fn(params, x, y, key):
+        logits = classifier_apply(
+            params, x, model_cfg, train=True, dropout_key=key,
+            compute_dtype=compute_dtype, lstm_impl=lstm_impl,
+        )
+        return cross_entropy_loss(logits, y, cw), logits
+
+    return loss_fn
+
+
 def make_train_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
@@ -57,23 +78,10 @@ def make_train_step(
 
     With ``mesh``, the step is compiled with explicit shardings — params/state
     replicated, batch sharded on the mesh's data axis — and XLA inserts the
-    gradient all-reduce over ICI from sharding propagation.
+    gradient all-reduce from sharding propagation.
     """
-    compute_dtype = jnp.bfloat16 if train_cfg.bf16 else None
-    cw = None if class_weights is None else jnp.asarray(class_weights)
-    # resolve "auto" HERE so the mesh is known: the implicit batch-sharded
-    # jit must not route through pallas_call (no GSPMD partitioning rule)
-    from eegflow.nn.lstm import resolve_lstm_impl
-
-    lstm_impl = resolve_lstm_impl(train_cfg.lstm_impl, mesh=mesh)
-
-    def loss_fn(params, x, y, key):
-        logits = classifier_apply(
-            params, x, model_cfg, train=True, dropout_key=key,
-            compute_dtype=compute_dtype, lstm_impl=lstm_impl,
-        )
-        loss = cross_entropy_loss(logits, y, cw)
-        return loss, logits
+    loss_fn = make_loss_fn(model_cfg, train_cfg.bf16, class_weights,
+                           train_cfg.lstm_impl)
 
     def step(state: TrainState, x, y, key):
         (loss, logits), grads = jax.value_and_grad(loss_fn, has_aux=True)(

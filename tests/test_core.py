@@ -23,7 +23,7 @@ from eegflow.core.timing import Timer, timed
 def test_config_roundtrip_json(tmp_path):
     cfg = PipelineConfig(
         model=ModelConfig(input_size=32, hidden_size=64),
-        train=TrainConfig(epochs=7, lstm_impl="pallas"),
+        train=TrainConfig(epochs=7, lstm_impl="scan"),
         ode=ODEConfig(de_maxiter=5),
     )
     path = tmp_path / "cfg.json"
@@ -109,19 +109,6 @@ def test_timer_registry():
     assert s["count"] == 2 and s["total_s"] >= 0
 
 
-def test_checkpoint_orbax_backend(tmp_path):
-    from eegflow.nn.model import classifier_init
-
-    cfg = ModelConfig(input_size=4, hidden_size=8, num_layers=1)
-    params = classifier_init(jax.random.key(1), cfg)
-    save_checkpoint(tmp_path / "ckpt_orbax", params, cfg, backend="orbax")
-    params2, cfg2, _, _ = load_checkpoint(tmp_path / "ckpt_orbax")
-    assert cfg2 == cfg
-    for a, b in zip(jax.tree_util.tree_leaves(params),
-                    jax.tree_util.tree_leaves(params2)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_train_periodic_checkpoint(tmp_path, rng):
     from eegflow.core.config import TrainConfig
     from eegflow.train import train_classifier
@@ -200,34 +187,147 @@ def test_restore_lists_only_converts_exact_ranges():
     assert out == {"hist": [1.0, 2.0], "epochs": {"3": "x"}}
 
 
-def test_orbax_sharded_checkpoint_roundtrip(tmp_path, rng, eight_device_mesh):
-    """Sharded TrainState-like pytree survives an orbax round trip with its
-    shardings intact (the multi-chip checkpointing path, SURVEY §5)."""
-    import jax
+def test_compile_cache_honours_the_environment_variable(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX keeps using it: the helper
+    sets no other directory."""
+    from eegflow.core.compile_cache import enable_compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env_cache"))
+    before = jax.config.jax_compilation_cache_dir
+    assert enable_compile_cache() == str(tmp_path / "env_cache")
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_the_checkouts_fixed_path(monkeypatch):
+    from pathlib import Path
+
+    from eegflow.core.compile_cache import REPO_CACHE_DIR, enable_compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        first = enable_compile_cache()
+        assert first == enable_compile_cache()          # same path every call
+        assert jax.config.jax_compilation_cache_dir == first
+        repo = Path(__file__).resolve().parents[1]
+        assert Path(first) == REPO_CACHE_DIR == repo / ".jax_cache"
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_directory_is_git_ignored():
+    from pathlib import Path
+
+    ignore = (Path(__file__).resolve().parents[1] / ".gitignore").read_text()
+    assert "/.jax_cache/" in ignore.split()
+
+
+def _family(name):
+    from eegflow.core.config import TransformerConfig
+
+    if name == "lstm":
+        return ModelConfig(input_size=4, hidden_size=8, num_layers=2)
+    return TransformerConfig(input_size=4, d_model=8, num_layers=1,
+                             num_heads=2, mlp_ratio=2)
+
+
+@pytest.mark.parametrize("family", ["lstm", "transformer"])
+def test_npz_checkpoint_roundtrip_both_families(tmp_path, family):
+    """params.npz + checkpoint.json; without a template the init-time
+    structure (nested dicts, lists of layers) comes back exactly."""
+    from eegflow.nn.model import classifier_apply, classifier_init
+
+    cfg = _family(family)
+    params = classifier_init(jax.random.key(3), cfg)
+    save_checkpoint(tmp_path / "ck", params, cfg, history={"loss": [1.0]})
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "checkpoint.json", "params.npz"]
+    params2, cfg2, history, _ = load_checkpoint(tmp_path / "ck")
+    assert type(cfg2) is type(cfg) and cfg2 == cfg and history["loss"] == [1.0]
+    assert (jax.tree_util.tree_structure(params2)
+            == jax.tree_util.tree_structure(params))
+    for a, b in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(params2)):
+        assert np.asarray(a).dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), b)
+    x = np.random.default_rng(0).standard_normal((2, 6, 4)).astype(np.float32)
+    np.testing.assert_array_equal(np.asarray(classifier_apply(params, x, cfg)),
+                                  np.asarray(classifier_apply(params2, x, cfg2)))
+
+
+@pytest.mark.parametrize("family", ["lstm", "transformer"])
+def test_npz_checkpoint_restores_into_a_template(tmp_path, family):
+    from eegflow.nn.model import classifier_init
+
+    cfg = _family(family)
+    params = classifier_init(jax.random.key(4), cfg)
+    save_checkpoint(tmp_path / "ck", params, cfg)
+    template = classifier_init(jax.random.key(99), cfg)
+    restored, *_ = load_checkpoint(tmp_path / "ck", params_template=template)
+    assert (jax.tree_util.tree_structure(restored)
+            == jax.tree_util.tree_structure(template))
+    for a, b in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(restored)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_pytree_npz_roundtrip_of_a_train_state(tmp_path):
+    """Optimizer states (tuples of NamedTuples, scalar counters, empty
+    states) survive save_pytree/load_pytree into a template."""
     import jax.numpy as jnp
-    import orbax.checkpoint as ocp
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
-    mesh = eight_device_mesh
-    data = jnp.asarray(rng.standard_normal((16, 4)).astype(np.float32))
-    sharded = jax.device_put(data, NamedSharding(mesh, P("data")))
-    replicated = jax.device_put(jnp.arange(9.0).reshape(3, 3),
-                                NamedSharding(mesh, P()))
-    tree = {"params": {"w": replicated}, "batch_stats": sharded}
+    from eegflow.core.artifacts import load_pytree, save_pytree
+    from eegflow.nn.model import classifier_init
+    from eegflow.train.steps import make_optimizer
 
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save((tmp_path / "ck").absolute(), tree, force=True)
-    ckptr.wait_until_finished()
+    cfg = ModelConfig(input_size=3, hidden_size=8, num_layers=1)
+    params = classifier_init(jax.random.key(5), cfg)
+    tx = make_optimizer(TrainConfig(accumulation_steps=4), updates_per_epoch=3)
+    opt_state = tx.init(params)
+    grads = jax.tree_util.tree_map(jnp.ones_like, params)
+    _, opt_state = tx.update(grads, opt_state, params)
+    tree = {"params": params, "opt_state": opt_state}
+    save_pytree(tmp_path / "state.npz", tree)
+    template = {"params": params, "opt_state": tx.init(params)}
+    restored = load_pytree(tmp_path / "state.npz", template)
+    assert (jax.tree_util.tree_structure(restored)
+            == jax.tree_util.tree_structure(tree))
+    for a, b in zip(jax.tree_util.tree_leaves(tree),
+                    jax.tree_util.tree_leaves(restored)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    target = jax.tree_util.tree_map(
-        lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=a.sharding),
-        tree)
-    restored = ckptr.restore((tmp_path / "ck").absolute(), target=target)
-    assert restored["batch_stats"].sharding.is_equivalent_to(
-        sharded.sharding, sharded.ndim)
-    assert restored["params"]["w"].sharding.is_equivalent_to(
-        replicated.sharding, replicated.ndim)
-    np.testing.assert_array_equal(np.asarray(restored["batch_stats"]),
-                                  np.asarray(data))
-    np.testing.assert_array_equal(np.asarray(restored["params"]["w"]),
-                                  np.asarray(replicated))
+
+@pytest.mark.parametrize("entry", ["classifier_apply", "make_train_step",
+                                   "make_eval_step", "coupled_rollout"])
+def test_removed_pallas_impl_raises_at_every_entry_point(entry):
+    """lstm_impl='pallas' named a removed kernel: every entry point that
+    takes it raises instead of falling back."""
+    import jax.numpy as jnp
+
+    from eegflow.nn.model import classifier_apply, classifier_init
+    from eegflow.train.steps import make_eval_step, make_optimizer, make_train_step
+
+    cfg = ModelConfig(input_size=3, hidden_size=8, num_layers=1)
+    params = classifier_init(jax.random.key(6), cfg)
+    x = jnp.ones((2, 5, 3))
+    with pytest.raises(ValueError, match="removed"):
+        if entry == "classifier_apply":
+            classifier_apply(params, x, cfg, lstm_impl="pallas")
+        elif entry == "make_train_step":
+            tc = TrainConfig(batch_size=2, accumulation_steps=1,
+                             lstm_impl="pallas")
+            tx = make_optimizer(tc, 1)
+            from eegflow.train.steps import TrainState
+
+            step = make_train_step(cfg, tc, tx, donate=False)
+            step(TrainState(params, tx.init(params), jnp.asarray(0)), x,
+                 jnp.asarray([0, 1]), jax.random.key(0))
+        elif entry == "make_eval_step":
+            make_eval_step(cfg, lstm_impl="pallas")(params, x)
+        else:
+            from eegflow.couple.rollout import coupled_rollout
+            from eegflow.ode import rates_to_array
+            from eegflow.ode.field import DEFAULT_RATES
+
+            coupled_rollout(params, x, rates_to_array(DEFAULT_RATES), cfg,
+                            lstm_impl="pallas")

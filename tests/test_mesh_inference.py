@@ -37,8 +37,7 @@ def test_predict_batch_sharded_matches_single(coupled_model, rng, eight_device_m
 
 
 def test_spmd_rollout_matches_single(coupled_model, rng, eight_device_mesh):
-    """The explicit shard_map coupled rollout (the TPU-mesh predict_batch
-    path, which keeps per-device pallas kernels — ref 06:308-406 phase 2)
+    """The explicit shard_map coupled rollout (ref 06:308-406 phase 2)
     equals the single-device/implicit results."""
     from eegflow.couple.rollout import make_spmd_rollout
 
@@ -105,8 +104,7 @@ def test_multistep_forecast_sharded_matches_single(rng, eight_device_mesh):
 
 
 def test_spmd_eval_step_matches_single(coupled_model, rng, eight_device_mesh):
-    """The explicit shard_map eval (the TPU-mesh predict_probs path, which
-    keeps per-device pallas kernels) equals the single-device forward."""
+    """The explicit shard_map eval equals the single-device forward."""
     from eegflow.train.loop import predict_probs
     from eegflow.train.mesh import (make_spmd_eval_step, replicate_to_mesh,
                                     shard_batch)
@@ -120,7 +118,7 @@ def test_spmd_eval_step_matches_single(coupled_model, rng, eight_device_mesh):
     xb = shard_batch(np.asarray(x), eight_device_mesh)
     sharded = np.asarray(step(params, xb))
     np.testing.assert_allclose(sharded, single, atol=1e-5)
-    # and through predict_probs' eval_step hook (the wiring the TPU branch uses)
+    # and through predict_probs' eval_step hook
     via_hook = np.asarray(predict_probs(model.params, x, model.model_cfg,
                                         batch_size=16, eval_step=step,
                                         mesh=eight_device_mesh))

@@ -209,9 +209,9 @@ def test_classifier_dropout_changes_train_output_only():
 
 
 def test_rbg_dropout_deterministic_and_correct_rate():
-    # EEGFLOW_RBG_DROPOUT swaps threefry bit generation for the TPU-native
-    # rbg generator (layers._rbg_key); the mask stream must stay a
-    # deterministic Bernoulli(keep) — semantics identical, bits cheaper
+    # dropout draws its bits from the rbg generator (layers._rbg_key); the
+    # mask stream must stay a deterministic Bernoulli(keep) — semantics
+    # identical to threefry, bits cheaper
     from eegflow.nn.layers import _rbg_key, dropout
 
     key = jax.random.key(7)
@@ -230,7 +230,7 @@ def test_rbg_dropout_deterministic_and_correct_rate():
     c = jnp.where(jax.random.bernoulli(_rbg_key(jax.random.key(8)), 0.6,
                                        x.shape), x / 0.6, 0.0)
     assert not np.array_equal(np.asarray(a), np.asarray(c))
-    # the plain path is untouched when the flag is off (default)
+    # dropout() itself is deterministic per key
     d1 = dropout(x, 0.4, key, True)
     d2 = dropout(x, 0.4, key, True)
     np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
@@ -253,17 +253,14 @@ def test_classifier_is_jittable_and_grads_flow():
 
 
 def test_resolve_lstm_impl_contract():
-    """'auto' resolves per backend; a mesh forces scan on the implicit
-    sharded-jit path (pallas_call has no GSPMD rule); explicit choices are
-    always respected."""
+    """'auto' and 'scan' both resolve to the lax.scan recurrence; the removed
+    'pallas' kernel and unknown names raise instead of falling back."""
     from eegflow.nn.lstm import resolve_lstm_impl
-    from eegflow.train.mesh import make_data_mesh
 
-    mesh = make_data_mesh(2)
     assert resolve_lstm_impl("scan") == "scan"
-    assert resolve_lstm_impl("pallas") == "pallas"
-    assert resolve_lstm_impl("pallas", mesh=mesh) == "pallas"  # explicit wins
-    assert resolve_lstm_impl("auto", mesh=mesh) == "scan"
-    assert resolve_lstm_impl(None, mesh=mesh) == "scan"
-    # on the CPU test backend, auto without a mesh is scan too
     assert resolve_lstm_impl("auto") == "scan"
+    assert resolve_lstm_impl(None) == "scan"
+    with pytest.raises(ValueError, match="removed"):
+        resolve_lstm_impl("pallas")
+    with pytest.raises(ValueError, match="unknown"):
+        resolve_lstm_impl("cudnn")

@@ -278,3 +278,59 @@ def test_sensitivity_structure():
     # increasing fatigue rate must increase steady-state Fatigued occupancy
     assert res["sensitivities"]["k_af"]["Fatigued"] > 0
     assert res["sensitivities"]["k_fa"]["Fatigued"] < 0
+
+
+def _dot_precisions(fn, *args):
+    """Precision of every dot_general in ``fn``'s jaxpr (nested included)."""
+    import jax
+
+    out = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                out.append(eqn.params["precision"])
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
+
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return out
+
+
+_K = rates_to_array(DEFAULT_RATES)
+_Y0 = jnp.asarray([0.33, 0.34, 0.33])
+
+
+@pytest.mark.parametrize("name,fn", [
+    ("expm_solve", lambda: expm_solve(_Y0, 0.0, 20.0, 20, _K)),
+    ("rk4_solve", lambda: rk4_solve(_Y0, 0.0, 20.0, 20, _K, substeps=4)),
+    ("solve_batch", lambda: solve_batch(jnp.tile(_Y0, (3, 1)), 0.0, 20.0, 20,
+                                        jnp.tile(_K, (3, 1)))),
+    ("steady_state", lambda: steady_state(_K)),
+])
+def test_ode_products_request_highest_precision(name, fn):
+    """Every 3x3 product of the integrators asks for HIGHEST: a GPU may run
+    default-precision f32 products in TF32 (about 3 decimal digits)."""
+    from jax import lax
+
+    precisions = _dot_precisions(fn)
+    assert precisions, f"{name}: no dot_general traced"
+    for p in precisions:
+        assert p == (lax.Precision.HIGHEST, lax.Precision.HIGHEST), (name, p)
+
+
+@pytest.mark.parametrize("rates", RATES_CASES)
+@pytest.mark.parametrize("method", ["expm", "rk4"])
+def test_solve_matches_scipy_under_tf32_default_precision(rates, method):
+    """With the process default set to TF32, the solves keep the 1e-5
+    parity with scipy.integrate.solve_ivp (rtol 1e-10)."""
+    import jax
+
+    y0 = [0.2, 0.2, 0.6]
+    with jax.default_matmul_precision("tensorfloat32"):
+        _, traj = solve(jnp.asarray(y0), (0.0, 20.0), 20,
+                        k=rates_to_array(rates), method=method)
+    ref = scipy_reference(y0, 0.0, 20.0, 20, rates)
+    ref = np.clip(ref, 0, 1)
+    ref = ref / ref.sum(1, keepdims=True)
+    assert np.max(np.abs(np.asarray(traj) - ref)) < 1e-5

@@ -93,7 +93,7 @@ def test_stage_baselines(pipeline_dirs):
 def test_stage_train(pipeline_dirs):
     base, _, out = pipeline_dirs
     run(base, "train")
-    assert (out / "models" / "lstm_attention" / "params.msgpack").exists()
+    assert (out / "models" / "lstm_attention" / "params.npz").exists()
     res = json.loads((out / "results" / "lstm_results.json").read_text())
     assert res["accuracy"] > 0.6  # 3 epochs on separable synthetic data
     ckpt = json.loads((out / "models" / "lstm_attention" / "checkpoint.json").read_text())
@@ -312,7 +312,7 @@ def test_apply_small_subject_reg_thresholds():
     """Auto-reg tiers (cli.main.apply_small_subject_reg): <12 subjects adds
     mixup + channel-dropout, <20 adds x2 fresh phase surrogates (measured
     winner of the round-5 gap_variants sweep: test AUC 0.9954 vs 0.8093
-    baseline, docs/ab_r5/gap_variants.json), >=20 and reference scale
+    baseline, docs/accuracy/gap_variants.json), >=20 and reference scale
     (ds004148, 42 training subjects) stay at parity semantics."""
     from eegflow.cli.main import apply_small_subject_reg
     from eegflow.core.config import TrainConfig

@@ -8,15 +8,14 @@ on identical data, splits, augmentation, and budget (parity defaults) and
 records test AUC/MCC side by side; its perf counterpart (device ms/step +
 MFU at B=512) comes from the `transformer` config in tools/ab_configs_r5.json
 via tools/profile_multi.py. Together they answer round-5 directive #3:
-recommend the EEGFormer as TPU flagship, or demote it in ROADMAP.
+recommend the EEGFormer as the flagship, or demote it in ROADMAP.
 
-Usage: python tools/model_compare.py [--out docs/ab_r5/model_compare.json]
+Usage: python tools/model_compare.py [--out docs/accuracy/model_compare.json]
        [--data /tmp/diag24] [--quick]
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -32,7 +31,7 @@ import numpy as np
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(REPO, "docs", "ab_r5",
+    ap.add_argument("--out", default=os.path.join(REPO, "docs", "accuracy",
                                                   "model_compare.json"))
     ap.add_argument("--data", default="/tmp/diag24",
                     help="shared with tools/diagnose_synthetic_gap.py so the "
@@ -80,10 +79,7 @@ def main() -> int:
         if name in results:
             print(f"[{name}] cached: {results[name]}", flush=True)
             continue
-        # transformer has no recurrence kernel; keep the BiLSTM on its
-        # flagship pallas path and let the transformer use scan-free apply
-        cfg = (dataclasses.replace(base, lstm_impl="scan")
-               if name == "eegformer" else base)
+        cfg = base
         print(f"\n[{name}] training ({epochs} epochs, parity defaults)...",
               flush=True)
         t0 = time.perf_counter()
@@ -99,8 +95,7 @@ def main() -> int:
                        res.params)) / 1e6, 3)}
         for split, (xx, yy) in (("train", (xtr, ytr)), ("val", (xva, yva)),
                                 ("test", (xte, yte))):
-            probs = np.asarray(predict_probs(res.params, xx, model_cfg,
-                                             lstm_impl=cfg.lstm_impl))
+            probs = np.asarray(predict_probs(res.params, xx, model_cfg))
             a, m = auc_mcc(yy, probs)
             rec[f"{split}_auc"], rec[f"{split}_mcc"] = round(a, 4), round(m, 4)
         results[name] = rec

@@ -1,71 +1,153 @@
-"""Profile the flagship train step per-impl on the current backend.
+"""Where the flagship train step spends its device time.
 
-Usage: python tools/profile_train.py [scan|pallas ...] [--batch N] [--steps N]
-Prints per-impl device ms/step, windows/s, MFU, and top ops.
+Compiles the full-width train step (ModelConfig(input_size=61): H=256, 3
+bidirectional layers, attention, T=256) at batch 512 under the bf16 policy,
+times it on the host clock around ``block_until_ready``, then traces a few
+steps with ``jax.profiler`` and reduces the trace with
+``eegflow.core.profiling.trace_breakdown``: device time in the ``lax.scan``
+recurrences (while-loop bodies), the hoisted LSTM input projections, the
+input block, the LN + attention pool, the head, and everything else
+(optimizer update, loss, dropout bits).
+
+Prints one JSON line and writes it, with the 40 largest ops, the device
+events the breakdown cannot attribute, and a sample of raw trace events, to
+``<out>/profile_train<tag>.json``.
+
+Usage: python tools/profile_train.py [--batch 512] [--steps 10]
+       [--trace-steps 3] [--out chiprun_out] [--tag T] [--plane /device:GPU:0]
+       [--hidden N --seq-len T]   (smaller widths, for a CPU rehearsal)
 """
-import argparse, os, sys, time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import numpy as np
+from __future__ import annotations
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("impls", nargs="*", default=None)
+import argparse
+import json
+import os
+import re
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--steps", type=int, default=10)
-    args = ap.parse_args()
-    impls = args.impls or ["scan", "pallas"]
+    ap.add_argument("--trace-steps", type=int, default=3)
+    ap.add_argument("--hidden", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--plane", default="/device:",
+                    help="trace plane prefix holding the device ops "
+                         "(/host:CPU for a CPU rehearsal)")
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
+    ap.add_argument("--tag", default="",
+                    help="suffix of the output file name")
+    args = ap.parse_args(argv)
 
-    import dataclasses
-    import os as _os
-    import jax, jax.numpy as jnp
-    if _os.environ.get("EEGFLOW_PRNG"):
-        jax.config.update("jax_default_prng_impl", _os.environ["EEGFLOW_PRNG"])
-    from eegflow.core.config import ModelConfig, TrainConfig, TransformerConfig
-    from eegflow.core.profiling import device_time, TPU_V5E_BF16_PEAK_FLOPS
-    from eegflow.nn.model import classifier_init, model_flops_per_window
+    from eegflow.core.profiling import card_info
+
+    card = card_info()
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from eegflow.core import profiling as pf
+    from eegflow.core.compile_cache import enable_compile_cache
+    from eegflow.core.config import ModelConfig, TrainConfig
+    from eegflow.nn.model import classifier_init
     from eegflow.train.steps import TrainState, make_optimizer, make_train_step
 
-    base_cfg = TrainConfig(batch_size=args.batch, accumulation_steps=4, bf16=True)
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    model_cfg = ModelConfig(input_size=61, hidden_size=args.hidden)
+    train_cfg = TrainConfig(batch_size=args.batch, bf16=True)
     rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal((args.batch, 256, 61)), jnp.float32)
+    x = jnp.asarray(rng.standard_normal(
+        (args.batch, args.seq_len, model_cfg.input_size)), jnp.float32)
     y = jnp.asarray(rng.integers(0, 2, args.batch))
+    params = classifier_init(jax.random.key(0), model_cfg)
+    tx = make_optimizer(train_cfg, updates_per_epoch=100)
+    step = make_train_step(model_cfg, train_cfg, tx, donate=True)
+    state = TrainState(params, tx.init(params), jnp.asarray(0))
+    compiled = step.lower(state, x, y, jax.random.key(0)).compile()
+    module = re.search(r"HloModule (\S+?),", compiled.as_text()).group(1)
+    labels = pf.hlo_op_labels(compiled.as_text())
 
-    for impl in impls:
-        # "transformer" profiles the EEGFormer family at flagship scale
-        # (d=256, 4 layers); other impls select the BiLSTM's lstm_impl
-        model_cfg = (TransformerConfig(input_size=61)
-                     if impl == "transformer" else ModelConfig(input_size=61))
-        flops_step = 3 * model_flops_per_window(model_cfg) * args.batch
-        cfg = dataclasses.replace(
-            base_cfg, lstm_impl="scan" if impl == "transformer" else impl)
-        params = classifier_init(jax.random.key(0), model_cfg)
-        tx = make_optimizer(cfg, updates_per_epoch=100)
-        state = [TrainState(params, tx.init(params), jnp.asarray(0))]
-        step = make_train_step(model_cfg, cfg, tx, donate=True)
-        i = [0]
-        def run():
-            i[0] += 1
-            s, m = step(state[0], x, y, jax.random.key(i[0]))
-            state[0] = s
-            jax.block_until_ready(m["loss"])
-        t0 = time.time()
-        run()
-        print(f"[{impl}] compiled+first step in {time.time()-t0:.1f}s", flush=True)
-        dt = device_time(run, iters=args.steps, warmup=2)
-        if dt is None:
-            print(f"[{impl}] NO TRACE PARSED", flush=True); continue
-        n_done = dt.iters_done or args.steps
-        step_s = dt.total_self_time_s / n_done
-        if step_s <= 0.0:  # CPU smoke runs: trace has no device ops
-            print(f"[{impl}] NO DEVICE TIME IN TRACE", flush=True); continue
-        mfu = flops_step / step_s / TPU_V5E_BF16_PEAK_FLOPS
-        print(f"[{impl}] device {step_s*1e3:.2f} ms/step | "
-              f"{args.batch/step_s:,.0f} windows/s | MFU {mfu*100:.1f}%", flush=True)
-        for cat, t in sorted(dt.by_category.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"    cat {cat:<28} {t/n_done*1e3:8.3f} ms/step", flush=True)
-        for op, t in dt.top_ops(int(__import__('os').environ.get('TOPOPS', '12'))):
-            print(f"    op  {op[:60]:<60} {t/n_done*1e3:8.3f} ms/step", flush=True)
+    box = [state, 0]
+
+    def once():
+        box[1] += 1
+        box[0], m = compiled(box[0], x, y, jax.random.key(box[1]))
+        return m["loss"]
+
+    first_s, step_s, _ = pf.time_calls(once, args.steps)
+    trace_dir = tempfile.mkdtemp(prefix="eegflow_trace_")
+    with jax.profiler.trace(trace_dir):
+        for _ in range(args.trace_steps):
+            jax.block_until_ready(once())
+    xplane = pf.newest_xplane(trace_dir)
+    ops = pf.device_ops(xplane, plane_prefix=args.plane)
+    br = pf.trace_breakdown(ops, labels, pf.TRAIN_STEP_CATEGORIES,
+                            module=module)
+    per_op = {}
+    for op in ops:
+        if op.module == module:
+            name = op.kernel if op.op == "command_buffer" else op.op
+            per_op[name] = per_op.get(name, 0.0) + op.duration_ns * 1e-9
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:40]
+
+    result = {
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "card": card,
+        "batch": args.batch, "seq_len": args.seq_len,
+        "hidden": model_cfg.resolved_hidden(),
+        "first_step_s": first_s, "step_s": step_s,
+        "trace_steps": args.trace_steps,
+        "device_s_per_step": {k: v / args.trace_steps
+                              for k, v in br.seconds.items()},
+        "shares": br.shares(),
+        "idle_share": br.idle_share,
+        "traced_step_s": br.window_s / args.trace_steps,
+        "n_ops": br.n_ops,
+        "xla_flags": os.environ.get("XLA_FLAGS", ""),
+    }
+    print(json.dumps(result), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    from jax.profiler import ProfileData
+
+    # a few raw events per trace line, and the device events with no hlo_op
+    # stat summed by name: what the breakdown above cannot attribute
+    sample, unlabeled = [], {}
+    for plane in ProfileData.from_file(xplane).planes:
+        if not plane.name.startswith(args.plane):
+            continue
+        for line in plane.lines:
+            for i, ev in enumerate(line.events):
+                stats = {k: str(v) for k, v in ev.stats}
+                if i < 15:
+                    sample.append({"plane": plane.name, "line": line.name,
+                                   "name": ev.name,
+                                   "duration_ns": ev.duration_ns,
+                                   "stats": stats})
+                if "hlo_op" not in stats:
+                    unlabeled[ev.name] = (unlabeled.get(ev.name, 0.0)
+                                          + ev.duration_ns * 1e-9)
+    with open(os.path.join(args.out, f"profile_train{args.tag}.json"), "w") as f:
+        json.dump({**result,
+                   "command_buffer_in_hlo_text": "command_buffer" in compiled.as_text(),
+                   "unlabeled_by_name": sorted(
+                       ((k, v / args.trace_steps) for k, v in unlabeled.items()),
+                       key=lambda kv: -kv[1])[:40],
+                   "top_ops": [(op, s / args.trace_steps, pf.op_label(
+                       pf.DeviceOp(module, op, 0, 0, op), labels) or "?")
+                       for op, s in top],
+                   "sample_events": sample[:200]}, f, indent=1)
+    return 0
+
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
